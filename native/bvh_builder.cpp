@@ -1,6 +1,6 @@
 // Native binned-SAH BVH builder (C ABI, loaded via ctypes).
 //
-// The runtime counterpart of caitlynrenderer_tpu/accel/bvh.py: identical
+// The runtime counterpart of caitlyn/accel/bvh.py: identical
 // algorithm (32-bin SAH over centroid bounds, leaf width max_leaf, flat
 // layout with right = left + 1, contiguous leaf triangle ranges) so the
 // two builders are interchangeable — the Python twin is the test oracle,

@@ -9,10 +9,10 @@ the brute-force closest hit.
 import numpy as np
 import jax.numpy as jnp
 
-from caitlynrenderer_tpu.accel.bvh import build_bvh, reorder_scene, sah_cost
-from caitlynrenderer_tpu.io.builtin_scenes import cornell_box, random_triangle_soup
-from caitlynrenderer_tpu.ops import intersect as isect
-from caitlynrenderer_tpu.ops.traverse_xla import traverse_anyhit, traverse_closest
+from caitlyn.accel.bvh import build_bvh, reorder_scene, sah_cost
+from caitlyn.io.builtin_scenes import cornell_box, random_triangle_soup
+from caitlyn.ops import intersect as isect
+from caitlyn.ops.traverse_xla import traverse_anyhit, traverse_closest
 
 
 def _scenes():

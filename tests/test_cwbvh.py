@@ -5,11 +5,11 @@ import pytest
 import numpy as np
 import jax.numpy as jnp
 
-from caitlynrenderer_tpu.accel.bvh import build_bvh, reorder_scene
-from caitlynrenderer_tpu.accel.cwbvh import build_cwbvh, MAX_LEAF_TRIS
-from caitlynrenderer_tpu.io.builtin_scenes import cornell_box, random_triangle_soup
-from caitlynrenderer_tpu.ops import intersect as isect
-from caitlynrenderer_tpu.ops.traverse_cwbvh import cwbvh_anyhit, cwbvh_closest
+from caitlyn.accel.bvh import build_bvh, reorder_scene
+from caitlyn.accel.cwbvh import build_cwbvh, MAX_LEAF_TRIS
+from caitlyn.io.builtin_scenes import cornell_box, random_triangle_soup
+from caitlyn.ops import intersect as isect
+from caitlyn.ops.traverse_cwbvh import cwbvh_anyhit, cwbvh_closest
 
 
 def _build(scene):
@@ -135,11 +135,11 @@ def test_cwbvh_anyhit_matches_brute():
 @pytest.mark.slow
 def test_cwbvh_end_to_end_parity(cornell):
     import jax
-    from caitlynrenderer_tpu.core.types import RenderOptions
-    from caitlynrenderer_tpu.cpu_reference import integrator as oracle
-    from caitlynrenderer_tpu.render import sampling
-    from caitlynrenderer_tpu.render.integrator import render_sample
-    from caitlynrenderer_tpu.scene import upload_scene
+    from caitlyn.core.types import RenderOptions
+    from caitlyn.cpu_reference import integrator as oracle
+    from caitlyn.render import sampling
+    from caitlyn.render.integrator import render_sample
+    from caitlyn.scene import upload_scene
 
     scene, camera = cornell
     ds = upload_scene(scene, accel="cwbvh")

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from caitlynrenderer_tpu.core.types import MaterialType, RenderOptions
-from caitlynrenderer_tpu.cpu_reference import bsdf as nbsdf
-from caitlynrenderer_tpu.ops import bsdf as jbsdf
+from caitlyn.core.types import MaterialType, RenderOptions
+from caitlyn.cpu_reference import bsdf as nbsdf
+from caitlyn.ops import bsdf as jbsdf
 
 
 def _params(n, **kw):
@@ -114,12 +114,12 @@ def test_energy_conservation():
 @pytest.mark.slow
 def test_integrator_parity_disney(cornell):
     """Config #2 material path: Disney floor, device == oracle."""
-    from caitlynrenderer_tpu.cpu_reference import integrator as oracle
-    from caitlynrenderer_tpu.io.builtin_scenes import cornell_box
-    from caitlynrenderer_tpu.core.types import make_camera
-    from caitlynrenderer_tpu.render import sampling
-    from caitlynrenderer_tpu.render.integrator import render_sample
-    from caitlynrenderer_tpu.scene import upload_scene
+    from caitlyn.cpu_reference import integrator as oracle
+    from caitlyn.io.builtin_scenes import cornell_box
+    from caitlyn.core.types import make_camera
+    from caitlyn.render import sampling
+    from caitlyn.render.integrator import render_sample
+    from caitlyn.scene import upload_scene
 
     scene, _ = cornell_box(floor_type=MaterialType.DISNEY)
     pos = np.array([2.78, 2.73, 7.5], np.float32)
@@ -142,10 +142,10 @@ def test_integrator_parity_disney(cornell):
 
 def test_rough_conductor_renders():
     """A RoughConductor floor produces finite, plausible glossy output."""
-    from caitlynrenderer_tpu.io.builtin_scenes import cornell_box
-    from caitlynrenderer_tpu.core.types import make_camera
-    from caitlynrenderer_tpu.render import progressive
-    from caitlynrenderer_tpu.scene import upload_scene
+    from caitlyn.io.builtin_scenes import cornell_box
+    from caitlyn.core.types import make_camera
+    from caitlyn.render import progressive
+    from caitlyn.scene import upload_scene
 
     scene, _ = cornell_box(floor_type=MaterialType.ROUGH_CONDUCTOR)
     # rough-conductor family ⇒ metallic=1 applied at parse/build time

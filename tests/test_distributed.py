@@ -8,19 +8,19 @@ import numpy as np
 import jax
 import pytest
 
-from caitlynrenderer_tpu.core.types import RenderOptions
-from caitlynrenderer_tpu.parallel.distributed import (
+from caitlyn.core.types import RenderOptions
+from caitlyn.parallel.distributed import (
     assemble_image,
     init_distributed,
     make_multihost_mesh,
     scaling_report,
 )
-from caitlynrenderer_tpu.parallel.render import (
+from caitlyn.parallel.render import (
     gather_image,
     init_sharded_state,
     sharded_render_step,
 )
-from caitlynrenderer_tpu.scene import scene_families, upload_scene
+from caitlyn.scene import scene_families, upload_scene
 
 
 @pytest.fixture(scope="module")
@@ -89,8 +89,8 @@ def test_scaling_report_runs_and_counts_real_rays(setup):
 def test_cli_mesh_render_writes_png(setup, tmp_path):
     """`render --mesh auto` drives make_multihost_mesh +
     sharded_render_step + assemble_image end-to-end."""
-    from caitlynrenderer_tpu.cli import main
-    from caitlynrenderer_tpu.io.image import load_png
+    from caitlyn.cli import main
+    from caitlyn.io.image import load_png
 
     out = tmp_path / "mesh.png"
     rc = main(
@@ -124,13 +124,13 @@ def test_tiled_sharded_render_bitwise_matches_untiled(setup):
     distribution layout never changes the image."""
     import jax.numpy as jnp
 
-    from caitlynrenderer_tpu.parallel.render import (
+    from caitlyn.parallel.render import (
         gather_image_tiled,
         init_tiled_state,
         sharded_render_step_tiled,
         tile_pixel_order,
     )
-    from caitlynrenderer_tpu.render import progressive
+    from caitlyn.render import progressive
 
     ds, camera, options = setup
     w = h = options.width

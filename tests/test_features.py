@@ -13,11 +13,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from caitlynrenderer_tpu.core.types import RenderOptions, make_camera
-from caitlynrenderer_tpu.io.builtin_scenes import cornell_box, procedural_sky
-from caitlynrenderer_tpu.render import sampling
-from caitlynrenderer_tpu.render.integrator import render_sample
-from caitlynrenderer_tpu.scene import required_stack, upload_scene
+from caitlyn.core.types import RenderOptions, make_camera
+from caitlyn.io.builtin_scenes import cornell_box, procedural_sky
+from caitlyn.render import sampling
+from caitlyn.render.integrator import render_sample
+from caitlyn.scene import required_stack, upload_scene
 
 
 # ---------------------------------------------------------------------------
@@ -47,8 +47,8 @@ def test_env_map_miss_radiance():
     img = np.asarray(render_sample(ds, camera, uniforms, w, h, options))
     # Every ray misses; radiance equals the env lookup — finite, positive,
     # and matching a direct sample_env call.
-    from caitlynrenderer_tpu.core.camera import generate_rays
-    from caitlynrenderer_tpu.ops.texture import sample_env
+    from caitlyn.core.camera import generate_rays
+    from caitlyn.ops.texture import sample_env
 
     o, d = generate_rays(camera, w, h, uniforms)
     expected = np.asarray(sample_env(jnp.asarray(env), d))
@@ -167,8 +167,8 @@ def _chain_bvh(depth: int):
 
 
 def test_deep_tree_traversal_needs_sized_stack():
-    from caitlynrenderer_tpu.accel.bvh import tree_depth
-    from caitlynrenderer_tpu.ops.traverse_xla import traverse_closest
+    from caitlyn.accel.bvh import tree_depth
+    from caitlyn.ops.traverse_xla import traverse_closest
 
     depth, hot = 48, 40
     node_bounds, node_meta = _chain_bvh(depth)
@@ -217,8 +217,8 @@ def test_russian_roulette_kills_lanes_and_stays_unbiased(cornell_setup):
     """RR must (a) reduce per-bounce active lanes, (b) leave the estimator
     unbiased: the many-sample mean with rr_start=1 matches rr off within
     Monte-Carlo tolerance."""
-    from caitlynrenderer_tpu.core.camera import generate_rays
-    from caitlynrenderer_tpu.render.integrator import trace_paths
+    from caitlyn.core.camera import generate_rays
+    from caitlyn.render.integrator import trace_paths
 
     _, ds, camera = cornell_setup
     w = h = 16
@@ -258,7 +258,7 @@ def test_russian_roulette_kills_lanes_and_stays_unbiased(cornell_setup):
 def test_integrator_stack_guard_raises_loudly():
     """A build whose tree is deeper than options.max_stack must raise at
     trace time (DeviceScene.tree_depth static metadata), not clamp."""
-    from caitlynrenderer_tpu.accel.bvh import FlatBVH
+    from caitlyn.accel.bvh import FlatBVH
 
     depth = 48
     node_bounds, node_meta = _chain_bvh(depth)
@@ -291,8 +291,8 @@ def test_integrator_stack_guard_raises_loudly():
 def test_russian_roulette_reduces_active_lanes_fast(cornell_setup):
     """One-sample smoke: rr_start kills lanes on late bounces only (the
     statistical unbiasedness check is the slow-tier test above)."""
-    from caitlynrenderer_tpu.core.camera import generate_rays
-    from caitlynrenderer_tpu.render.integrator import trace_paths
+    from caitlyn.core.camera import generate_rays
+    from caitlyn.render.integrator import trace_paths
 
     _, ds, camera = cornell_setup
     w = h = 16

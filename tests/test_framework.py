@@ -9,11 +9,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from caitlynrenderer_tpu.core.types import RenderOptions
-from caitlynrenderer_tpu.render import progressive
-from caitlynrenderer_tpu.render.tiled import render_image_tiled, render_tile, tile_grid
-from caitlynrenderer_tpu.scene import upload_scene
-from caitlynrenderer_tpu.utils import checkpoint, config, metrics
+from caitlyn.core.types import RenderOptions
+from caitlyn.render import progressive
+from caitlyn.render.tiled import render_image_tiled, render_tile, tile_grid
+from caitlyn.scene import upload_scene
+from caitlyn.utils import checkpoint, config, metrics
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -81,13 +81,13 @@ def test_config_loading(tmp_path):
     options = config.options_from_config(cfg, width=32)
     assert scene.num_triangles > 0
     assert options.width == 32 and options.height == 256
-    assert options.accel == "wide"
+    assert options.accel == "auto"
     assert abs(float(camera.fov) - np.deg2rad(40)) < 1e-6
 
 
 def test_metrics_records():
-    from caitlynrenderer_tpu.accel.bvh import build_bvh
-    from caitlynrenderer_tpu.io.builtin_scenes import cornell_box
+    from caitlyn.accel.bvh import build_bvh
+    from caitlyn.io.builtin_scenes import cornell_box
 
     scene, _ = cornell_box()
     bvh = build_bvh(scene.vertices, scene.tri_v)
@@ -106,7 +106,7 @@ def test_cli_render_smoke(tmp_path):
     out = str(tmp_path / "out.png")
     r = subprocess.run(
         [
-            sys.executable, "-m", "caitlynrenderer_tpu.cli", "render",
+            sys.executable, "-m", "caitlyn.cli", "render",
             os.path.join(REPO, "scenes", "cornell.toml"),
             "-o", out, "--spp", "2", "--width", "8", "--height", "8", "--depth", "1",
             "--accel", "bvh2",
@@ -119,7 +119,7 @@ def test_cli_render_smoke(tmp_path):
     )
     assert r.returncode == 0, r.stderr[-2000:]
     assert os.path.exists(out)
-    from caitlynrenderer_tpu.io.image import load_png
+    from caitlyn.io.image import load_png
 
     img = load_png(out)
     assert img.shape == (8, 8, 3)

@@ -16,10 +16,10 @@ import os
 import numpy as np
 import jax
 
-from caitlynrenderer_tpu.core.types import RenderOptions, make_camera
-from caitlynrenderer_tpu.io.builtin_scenes import cornell_box
-from caitlynrenderer_tpu.render import progressive
-from caitlynrenderer_tpu.scene import scene_families, upload_scene
+from caitlyn.core.types import RenderOptions
+from caitlyn.io.builtin_scenes import builtin_camera, cornell_box
+from caitlyn.render import progressive
+from caitlyn.scene import scene_families, upload_scene
 
 GOLDEN = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -30,11 +30,7 @@ GOLDEN = os.path.join(
 def test_cornell_matches_committed_golden():
     golden = np.load(GOLDEN)["img"]
     scene, _ = cornell_box()
-    camera = make_camera(
-        np.array([2.8, 2.75, 13.18], np.float32),
-        np.array([2.8, 2.75, 12.18], np.float32),
-        40.0,
-    )
+    camera = builtin_camera("cornell")
     ds = upload_scene(scene, accel="bvh2")
     options = RenderOptions(
         width=64, height=64, max_depth=3, accel="bvh2",

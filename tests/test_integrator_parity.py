@@ -13,11 +13,11 @@ import pytest
 pytestmark = pytest.mark.slow  # oracle renders: the heavy parity tier
 import jax.numpy as jnp
 
-from caitlynrenderer_tpu.core.types import MaterialType, RenderOptions
-from caitlynrenderer_tpu.cpu_reference import integrator as oracle
-from caitlynrenderer_tpu.render import sampling
-from caitlynrenderer_tpu.render.integrator import render_sample
-from caitlynrenderer_tpu.scene import upload_scene
+from caitlyn.core.types import MaterialType, RenderOptions
+from caitlyn.cpu_reference import integrator as oracle
+from caitlyn.render import sampling
+from caitlyn.render.integrator import render_sample
+from caitlyn.scene import upload_scene
 
 
 def _parity(scene_np, camera, w, h, depth, accel, seed=0, atol=2e-3):
@@ -55,8 +55,8 @@ def test_cornell_brute_vs_bvh_depth3(cornell):
 
 
 def test_parity_specular_scene():
-    from caitlynrenderer_tpu.core.types import make_camera
-    from caitlynrenderer_tpu.io.builtin_scenes import cornell_box
+    from caitlyn.core.types import make_camera
+    from caitlyn.io.builtin_scenes import cornell_box
 
     scene, _ = cornell_box(floor_type=MaterialType.MIRROR)
     pos = np.array([2.78, 2.73, 7.5], np.float32)
@@ -66,7 +66,7 @@ def test_parity_specular_scene():
 
 def test_progressive_accumulation_matches_mean(cornell):
     """Progressive N-sample accumulation == mean of N independent samples."""
-    from caitlynrenderer_tpu.render import progressive
+    from caitlyn.render import progressive
 
     scene, camera = cornell
     ds = upload_scene(scene, accel="bvh2")

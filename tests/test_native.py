@@ -7,15 +7,17 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from caitlynrenderer_tpu.accel.bvh import FlatBVH, build_bvh, reorder_scene
-from caitlynrenderer_tpu.accel.native import native_available
-from caitlynrenderer_tpu.io.builtin_scenes import displaced_grid, random_triangle_soup
-from caitlynrenderer_tpu.ops import intersect as isect
-from caitlynrenderer_tpu.ops.traverse_xla import traverse_closest
+from caitlyn.accel.bvh import FlatBVH, build_bvh, reorder_scene
+from caitlyn.accel.native import native_available
+from caitlyn.io.builtin_scenes import displaced_grid, random_triangle_soup
+from caitlyn.ops import intersect as isect
+from caitlyn.ops.traverse_xla import traverse_closest
 
-pytestmark = pytest.mark.skipif(
-    not native_available(), reason="native toolchain unavailable"
-)
+
+@pytest.fixture(autouse=True)
+def _native():
+    if not native_available():
+        pytest.skip("native toolchain unavailable")
 
 
 def test_native_invariants_and_equivalence():

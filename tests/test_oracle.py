@@ -3,8 +3,8 @@
 import pytest
 import numpy as np
 
-from caitlynrenderer_tpu.cpu_reference import integrator as oracle
-from caitlynrenderer_tpu.core.types import MaterialType
+from caitlyn.cpu_reference import integrator as oracle
+from caitlyn.core.types import MaterialType
 
 
 def test_scene_load(cornell):
@@ -64,10 +64,10 @@ def test_white_furnace_energy():
     stay finite and the physically-correct NEE must not gain energy
     unboundedly across depths (regression for the reference's missing
     cos/pi factor, which this framework corrects)."""
-    from caitlynrenderer_tpu.io.builtin_scenes import cornell_box
+    from caitlyn.io.builtin_scenes import cornell_box
 
     scene, translation = cornell_box(albedo=(1.0, 1.0, 1.0))
-    from caitlynrenderer_tpu.core.types import make_camera
+    from caitlyn.core.types import make_camera
 
     pos = np.array([2.78, 2.73, 7.5], np.float32)
     camera = make_camera(pos, pos + np.array([0, 0, -1.0], np.float32), 40.0)
@@ -88,8 +88,8 @@ def test_white_furnace_energy():
 @pytest.mark.slow
 def test_mirror_material():
     """A mirror floor must reflect the light (specular path carries Le)."""
-    from caitlynrenderer_tpu.io.builtin_scenes import cornell_box
-    from caitlynrenderer_tpu.core.types import make_camera
+    from caitlyn.io.builtin_scenes import cornell_box
+    from caitlyn.core.types import make_camera
 
     scene, _ = cornell_box(floor_type=MaterialType.MIRROR)
     pos = np.array([2.78, 2.73, 7.5], np.float32)

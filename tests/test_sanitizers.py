@@ -9,11 +9,11 @@ import numpy as np
 import jax
 import pytest
 
-from caitlynrenderer_tpu.core.types import RenderOptions, make_camera
-from caitlynrenderer_tpu.io.builtin_scenes import cornell_box
-from caitlynrenderer_tpu.render import sampling
-from caitlynrenderer_tpu.scene import upload_scene, validate_scene
-from caitlynrenderer_tpu.utils.debug import checked_render_sample
+from caitlyn.core.types import RenderOptions, make_camera
+from caitlyn.io.builtin_scenes import cornell_box
+from caitlyn.render import sampling
+from caitlyn.scene import upload_scene, validate_scene
+from caitlyn.utils.debug import checked_render_sample
 
 
 def _cam():

@@ -5,11 +5,11 @@ import pytest
 import numpy as np
 import jax.numpy as jnp
 
-from caitlynrenderer_tpu.accel.bvh import build_bvh, reorder_scene, sah_cost
-from caitlynrenderer_tpu.accel.sbvh import build_sbvh
-from caitlynrenderer_tpu.io.builtin_scenes import cornell_box, random_triangle_soup
-from caitlynrenderer_tpu.ops import intersect as isect
-from caitlynrenderer_tpu.ops.traverse_xla import traverse_closest
+from caitlyn.accel.bvh import build_bvh, reorder_scene, sah_cost
+from caitlyn.accel.sbvh import build_sbvh
+from caitlyn.io.builtin_scenes import cornell_box, random_triangle_soup
+from caitlyn.ops import intersect as isect
+from caitlyn.ops.traverse_xla import traverse_closest
 
 
 def _scenes():
@@ -91,11 +91,11 @@ def test_sbvh_beats_sah_on_overlap_heavy_scene():
 @pytest.mark.slow
 def test_upload_scene_sbvh_end_to_end(cornell):
     import jax
-    from caitlynrenderer_tpu.core.types import RenderOptions
-    from caitlynrenderer_tpu.render import sampling
-    from caitlynrenderer_tpu.render.integrator import render_sample
-    from caitlynrenderer_tpu.scene import upload_scene
-    from caitlynrenderer_tpu.cpu_reference import integrator as oracle
+    from caitlyn.core.types import RenderOptions
+    from caitlyn.render import sampling
+    from caitlyn.render.integrator import render_sample
+    from caitlyn.scene import upload_scene
+    from caitlyn.cpu_reference import integrator as oracle
 
     scene, camera = cornell
     ds = upload_scene(scene, accel="sbvh")

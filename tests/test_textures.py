@@ -14,13 +14,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from caitlynrenderer_tpu.core.types import RenderOptions, make_camera
-from caitlynrenderer_tpu.io.image import save_png
-from caitlynrenderer_tpu.io.obj import load_obj
-from caitlynrenderer_tpu.ops.texture import sample_bilinear
-from caitlynrenderer_tpu.render import sampling
-from caitlynrenderer_tpu.render.integrator import render_sample
-from caitlynrenderer_tpu.scene import scene_families, upload_scene
+from caitlyn.core.types import RenderOptions, make_camera
+from caitlyn.io.image import save_png
+from caitlyn.io.obj import load_obj
+from caitlyn.ops.texture import sample_bilinear
+from caitlyn.render import sampling
+from caitlyn.render.integrator import render_sample
+from caitlyn.scene import scene_families, upload_scene
 
 
 # ---------------------------------------------------------------------------
